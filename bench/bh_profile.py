@@ -1,7 +1,7 @@
 """Component timing for the bh force model at N=1M (what dominates a step).
 
-Run on the TPU chip: ``python -m bench.bh_profile [--n 1048576]``. Times the
-far field, the near field, the full accumulator pass, and the full step
+Run on the GPU: ``python -m bench.bh_profile [--n 1048576]``. Times the far
+field, the near field, the full accumulator pass, and the full step
 separately (each jitted and fenced with a host scalar fetch). One JSON line.
 """
 
@@ -26,8 +26,6 @@ def main(argv=None) -> int:
                     help="per-cell slot cap override (0 = slot_cap auto)")
     ap.add_argument("--far", default="fmm", choices=("fmm", "direct"))
     ap.add_argument("--near", default="rows", choices=("rows", "slots"))
-    ap.add_argument("--pallas", default="auto", choices=("auto", "on", "off"),
-                    help="fused Pallas near kernel (bhNear=slots only)")
     ap.add_argument("--only", default="",
                     help="comma-separated probe names (default: all)")
     ap.add_argument("--scene", default="uniform",
@@ -61,7 +59,7 @@ def main(argv=None) -> int:
                     bh_neighbor_k=args.k, bh_ring=args.ring,
                     bh_order=args.order, dimensions=args.dim,
                     bh_far=args.far, bh_near=args.near,
-                    bh_pallas=args.pallas, scene=args.scene,
+                    scene=args.scene,
                     bh_giants=args.giants,
                     bh_comp_cap=args.compcap)
     state = init_scene(cfg, parity=False)
@@ -92,8 +90,7 @@ def main(argv=None) -> int:
                               ring=args.ring, neighbor_k=args.k,
                               order=args.order, ci_cap=args.cicap,
                               far=args.far, near=args.near,
-                              comp_cap=args.compcap,
-                              near_pallas=args.pallas)
+                              comp_cap=args.compcap)
         return acc.force[0, 0] + acc.gained_mass[-1]
 
     step = build_step(cfg)
@@ -135,56 +132,6 @@ def main(argv=None) -> int:
             is_stable=True)
         return s_cell[0] + order[-1]
 
-    # slot-pack + near-kernel probes run on a PREBUILT structure so they
-    # time exactly one component (slots engine only). SKIPPED when --only
-    # excludes them: the prebuilt structure + padded jrows stay alive for
-    # the whole probe loop, and at N=16M that held working set OOM'd the
-    # full_step_s probe (r5) — the record this tool exists to measure.
-    slotpack_only = nearkernel_only = None
-    _only = [x for x in (args.only or "").split(",") if x]
-    want_kernel_probes = not _only or {"slotpack_s", "nearkernel_s"} & set(
-        _only)
-    if args.near == "slots" and want_kernel_probes:
-        from nbodyax.physics.barneshut import _extent as _ext_fn
-        from nbodyax.physics.slotpack_pallas import (build_jrows_pallas,
-                                                     slot_pack_plan)
-        ncells0 = g ** args.dim
-        S_full = max(args.k, cap)
-        ext0 = jax.jit(lambda p, m: _ext_fn(p, m > 0))(pos, mass)
-        structure0 = jax.jit(
-            lambda p, v, m, r: _partner_structure(
-                p, v, m, r, ext0, g, False))(pos, vel, mass, radius)
-        # pass the REAL feature width so the plan applies the same L > 8
-        # guard as the production call (barneshut.py:1988) — the probe is
-        # reference-mode (L = dim+4 <= 7) today, but a future elastic probe
-        # would otherwise crash the 8-sublane DMA buffer
-        plan = slot_pack_plan(n, ncells0, S_full, structure0[4].shape[1])
-        if plan is not None:
-
-            @jax.jit
-            def slotpack_only(sf, starts, ends):
-                jr = build_jrows_pallas(sf, starts, ends, n, ncells0,
-                                        S_full, plan)
-                return jr[0, 0, 0] + jr[-1, -1, -1]
-
-            jrows0 = jax.jit(
-                lambda sf, st, en: build_jrows_pallas(
-                    sf, st, en, n, ncells0, S_full, plan))(
-                structure0[4], structure0[2], structure0[3])
-            padc0 = args.ring * sum(g ** d for d in range(args.dim))
-            jrows_pad0 = jnp.pad(jrows0, ((padc0, padc0), (0, 0), (0, 0)))
-
-            @jax.jit
-            def nearkernel_only(jrows_pad):
-                from nbodyax.physics.near_pallas import slots_near_raw
-                raw = slots_near_raw(
-                    jrows_pad, mode="reference", eps2=eps2,
-                    growth=jnp.float32(0.1), g=g, ring=args.ring,
-                    dim=args.dim, S=S_full, ci=cap,
-                    L=structure0[4].shape[1],
-                    eps_pos=float(cfg.softening) > 0)
-                return raw[0, 0] + raw[-1, -1]
-
     @jax.jit
     def grids_only(pos, mass):
         ext = _extent(pos, mass > 0)
@@ -194,13 +141,10 @@ def main(argv=None) -> int:
     @jax.jit
     def near_cells_only(pos, vel, mass, radius):
         ext = _extent(pos, mass > 0)
-        from nbodyax.physics.barneshut import _resolve_near_pallas
         acc = _near_field_cells(pos, vel, mass, radius, ext, levels,
                                 args.ring, eps2, jnp.float32(0.1),
                                 "reference", args.k, ci_cap=cap,
-                                near=args.near, comp_cap=args.compcap,
-                                pallas_near=_resolve_near_pallas(
-                                    args.pallas, args.near))
+                                near=args.near, comp_cap=args.compcap)
         return acc.force[0, 0] + acc.gained_mass[-1]
 
     @jax.jit
@@ -244,15 +188,10 @@ def main(argv=None) -> int:
         "accum_s": (accum_full, (pos, vel, mass, radius)),
         "full_step_s": (step, (state,)),
     }
-    if slotpack_only is not None:
-        probes["slotpack_s"] = (slotpack_only,
-                                (structure0[4], structure0[2],
-                                 structure0[3]))
-        probes["nearkernel_s"] = (nearkernel_only, (jrows_pad0,))
     only = [s for s in (args.only or "").split(",") if s]
     out = {"n": n, "levels": levels, "k": args.k, "ring": args.ring,
            "order": args.order, "dim": args.dim, "ci_cap": cap,
-           "far": args.far, "near": args.near, "pallas": args.pallas,
+           "far": args.far, "near": args.near,
            "scene": args.scene}
     for name, (fn, a) in probes.items():
         if only and name not in only:

@@ -1,10 +1,10 @@
 """3-D mode benchmark: full-step pairwise throughput at N with dimensions=3.
 
-Validates the dim=3 Pallas kernel on real hardware (Mosaic lowering; the CPU
-tests run it in interpret mode only) and records its cost relative to 2-D.
-Per pair, 3-D adds ~8 VPU ops (one more diff/square/fma chain in distance,
-force, and — per mode — impulse math), so the expected ratio on a VPU-bound
-kernel is roughly (ops_2d + 8) / ops_2d.
+Runs the dim=3 Pallas kernel compiled for the GPU (the CPU tests run it in
+interpret mode only) and records its cost relative to 2-D. Per pair, 3-D
+adds ~8 f32 ops (one more diff/square/fma chain in distance, force, and —
+per mode — impulse math), so the expected ratio on a kernel bound by the
+f32 pipe is roughly (ops_2d + 8) / ops_2d.
 
 Usage: python -m bench.dim3 [--n 1048576] [--reps 1] [--mode reference]
 """

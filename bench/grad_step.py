@@ -1,16 +1,14 @@
-"""On-chip gradient-step timing at headline scale (N=1M, backend=pallas).
+"""GPU gradient-step timing at headline scale (N=1M, backend=pallas).
 
-Closes the README "differentiable simulation" claim at the scale the
-forward headline is measured: reverse-mode through a k-step rollout of the
-exact Pallas pair kernel (forward pass + the analytic backward pass of
-physics/kernels_bwd.py, wired via jax.custom_vjp), with per-step
+Reverse-mode through a k-step rollout of the exact Pallas pair kernel
+(forward pass + a backward that is the VJP of the same raw channels in
+plain jnp, wired via jax.custom_vjp in physics/kernels.py), with per-step
 jax.checkpoint so residual memory stays O(k * state). The reference cannot
 express this at all (/root/reference/src/nbody.cu is forward-only CUDA).
 
 Reports seconds per gradient step (wall of one jitted grad call / k) next
 to the forward step for the same configuration — the grad/forward ratio is
-the number to watch (analytic VJP ~= one extra pair pass + the remat
-forward, so ~3x forward is speed-of-light for remat'd reverse mode).
+the number to watch.
 
 Run: ``python -m bench.grad_step [--n 1048576] [--steps 4] [--mode reference]``
 """
@@ -60,7 +58,7 @@ def main(argv=None) -> int:
     grad = jax.jit(jax.grad(lambda pos: loss(state._replace(pos=pos))))
 
     def fence(x):
-        return float(jnp.sum(jnp.abs(x)))  # host fetch = the relay fence
+        return float(jnp.sum(jnp.abs(x)))  # host fetch = completion fence
 
     # forward step baseline (same config/backend)
     fwd = jax.jit(step)

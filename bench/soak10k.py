@@ -3,15 +3,17 @@
 The reference's endurance anchor is 16,384 bodies x 2,000 steps
 (/root/reference/nbodyConfig.txt:1-2); BASELINE.md config 5 scales that to
 N=4M sharded/single-chip with a 10k-step horizon. This runner executes the
-horizon end-to-end on the real chip in resumable stages:
+horizon end-to-end on the GPU in resumable stages:
 
 - ``--until K`` runs from the latest checkpoint (or a fresh scene) to step K
   in ONE ``run_simulation`` invocation with ``autoResume`` armed — transient
-  relay/worker failures reload the newest snapshot and continue.
+  device failures reload the newest snapshot and continue.
 - Invoking the runner again with a larger ``--until`` is a REAL resume
   boundary: a fresh process, fresh jit cache, state reloaded from disk
-  (exactly the crash-recovery path). The driver's 10k soak does
-  ``--until 5000`` then ``--until 10000``.
+  (exactly the crash-recovery path). Run the stages one after another —
+  start the next process only after the previous one has exited, since each
+  holds most of the GPU's memory while it runs: ``--until 5000`` then
+  ``--until 10000``.
 - Checkpoints every 100 steps with retention (keep-last-3 + every-2000-step
   milestones) so the run leaves ~0.7 GB on disk, not 10 GB.
 - JSONL metrics every 50 steps (alive/mass/momentum/KE/sim-wall/bh_overflow)

@@ -5,7 +5,7 @@ horizon WITH a real resume boundary: phase A runs ``steps_a`` iterations and
 checkpoints, phase B resumes from the latest checkpoint (a fresh driver
 invocation, exactly the crash-recovery path) and continues to
 ``steps_a + steps_b``. Records finiteness + conservation scalars before/after
-the boundary. ~150 s of device time per step at 1.1e11 pairs/s.
+the boundary.
 
 Run: ``python -m bench.soak4m [--steps-a 12] [--steps-b 8] [--out ...]``
 """

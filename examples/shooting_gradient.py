@@ -11,15 +11,13 @@ The reference cannot express this at all — its CUDA step is forward-only;
 here reverse-mode AD falls out of the functional step design.
 """
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from nbodyax.autodiff import rollout
+from nbodyax.backends import build_accum_fn
 from nbodyax.config import SimConfig
-from nbodyax.physics.pairwise import pair_accumulators
 from nbodyax.physics.step import PhysicsParams, make_step
 from nbodyax.state import make_state
 
@@ -27,29 +25,34 @@ N, SCALE, STEPS = 64, 100.0, 40
 TARGET = jnp.asarray([75.0, -60.0])
 
 
-def main():
+def build_problem(n: int = N, backend: str = "jnp"):
+    """(miss, v0): the terminal miss distance as a function of body 0's
+    initial velocity, for an n-body scene, with the pair pass of
+    ``backend`` (backends.build_accum_fn)."""
     rng = np.random.RandomState(7)
     state = make_state(
-        rng.uniform(-SCALE, SCALE, (N, 2)).astype(np.float32),
-        rng.uniform(-0.5, 0.5, (N, 2)).astype(np.float32),
-        rng.uniform(0.5e12, 2e12, N).astype(np.float32),   # G*m ~ 1e2
-        rng.uniform(0.5, 2.0, N).astype(np.float32))
+        rng.uniform(-SCALE, SCALE, (n, 2)).astype(np.float32),
+        rng.uniform(-0.5, 0.5, (n, 2)).astype(np.float32),
+        rng.uniform(0.5e12, 2e12, n).astype(np.float32),   # G*m ~ 1e2
+        rng.uniform(0.5, 2.0, n).astype(np.float32))
 
-    cfg = SimConfig(particle_count=N, collision_mode="reference",
-                    backend="jnp", softening=5.0,
+    cfg = SimConfig(particle_count=n, collision_mode="reference",
+                    backend=backend, softening=5.0,
                     field_width=10_000, field_height=10_000)
     p = PhysicsParams.from_config(cfg)
-    step = make_step(p, accum_fn=partial(
-        pair_accumulators, eps=p.eps, growth_rate=p.growth_rate,
-        mode="reference"))
+    step = make_step(p, accum_fn=build_accum_fn(cfg.backend, p))
 
     def miss(v0):
         s0 = state._replace(vel=state.vel.at[0].set(v0))
         final, _ = rollout(step, s0, STEPS)
         return jnp.sum(((final.pos[0] - TARGET) / SCALE) ** 2)
 
+    return miss, state.vel[0]
+
+
+def main():
+    miss, v0 = build_problem()
     vg = jax.jit(jax.value_and_grad(miss))
-    v0 = state.vel[0]
     val, g = vg(v0)
     print(f"iter  0: miss^2 = {float(val):.6f}")
     for it in range(1, 21):

@@ -1,11 +1,11 @@
-"""nbodyax — TPU-native 2-D n-body simulation with collisions.
+"""nbodyax — n-body simulation with collisions in JAX.
 
 A brand-new JAX / XLA / Pallas / pjit simulation engine with the capabilities of
 the CUDA assignment ``Aidan900/ppa-nbody-collisions`` (see SURVEY.md):
 
 - O(N^2) all-pairs gravity with radius-overlap collision handling
   (reference-faithful absorb-on-contact merging, plus momentum-conserving and
-  elastic modes), fused into a single tiled Pallas pass on TPU.
+  elastic modes), fused into a single tiled Pallas pass on the GPU.
 - Semi-implicit Euler (reference semantics) and leapfrog integrators with
   reflective field boundaries.
 - Deterministic scene generation bit-compatible with the reference's seeded

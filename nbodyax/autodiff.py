@@ -10,20 +10,20 @@ adjoint workflows — initial-condition optimization ("shooting" a body onto a
 target), sensitivity analysis of merge outcomes to initial masses, fitting
 scene parameters to an observed trajectory.
 
-Design notes (TPU/JAX specifics):
+Design notes (JAX specifics):
 
 - The driver's hot loops use ``lax.fori_loop``, which is forward-only; a
   differentiable rollout must use ``lax.scan`` (this module's ``rollout``).
 - Reverse-mode through k steps stores each step's residuals. A step's
   dominant intermediates are the O(N^2)-shaped (chunked) pair temporaries —
-  storing those for every step would blow HBM long before k gets
+  storing those for every step would fill device memory long before k gets
   interesting, so ``rollout`` wraps the step in ``jax.checkpoint`` by
   default: the backward pass rematerializes each step's pair pass from its
   carried SimState, making residual memory O(k * state) instead of
-  O(k * pair intermediates) — the standard TPU trade of FLOPs for HBM.
+  O(k * pair intermediates) — the standard trade of FLOPs for memory.
 - Both all-pairs backends differentiate: the ``jnp`` oracle natively, and
-  ``backend="pallas"`` through the analytic backward Pallas pass
-  (physics/kernels_bwd.py, wired with ``jax.custom_vjp`` in kernels.py) —
+  ``backend="pallas"`` through a ``jax.custom_vjp`` whose backward is the
+  VJP of the same raw channels computed in plain jnp (kernels.py) —
   gradients are pinned equal between the two in every collision mode
   (tests/test_autodiff.py), including through the sharded ring.
   ``forceModel=bh`` steps remain forward-only (the tree build is

@@ -1,8 +1,9 @@
 """Backend selection: which all-pairs engine computes the accumulators.
 
 - ``jnp``    — chunked dense pass (physics/pairwise.py). Runs anywhere; the
-               oracle. Default off-TPU.
-- ``pallas`` — fused Pallas TPU kernel (physics/kernels.py). Default on TPU.
+               oracle. Default where the default backend is not a GPU.
+- ``pallas`` — fused Pallas kernel for the GPU (physics/kernels.py). Default
+               on a GPU.
 - sharded    — when shards > 1, the per-shard engine above is wrapped in the
                ppermute ring (sharding/ring.py) by the driver.
 """
@@ -19,33 +20,21 @@ from nbodyax.physics.step import PhysicsParams
 
 def resolve_backend(name: str) -> str:
     if name == "auto":
-        if jax.default_backend() == "tpu":
-            try:
-                import nbodyax.physics.kernels  # noqa: F401
-                return "pallas"
-            except ImportError:
-                return "jnp"
-        return "jnp"
+        return "pallas" if jax.default_backend() == "gpu" else "jnp"
     return name
 
 
 def _resolve_near(cfg) -> str:
     """bhNear for an accum fn: "auto" means the caller never probed the
     density (driver.resolve_bh_config does that against the starting state
-    before reaching here) — fall back to slots wherever its fused Pallas
-    kernel runs (A/B-faster than rows at every size on TPU), else by the
-    measured jnp-engine size crossover: rows is uniform-optimal below
-    ~1.5M bodies, slots above (the rows engine's window gathers scale
-    worse with table size; barneshut's _SLOTS_PREFERRED_N records the
-    A/B numbers)."""
+    before reaching here) — fall back to the size crossover: rows below
+    barneshut's _SLOTS_PREFERRED_N bodies, slots above (the rows engine's
+    window gathers scale worse with table size)."""
     near = getattr(cfg, "bh_near", "rows")
     if near != "auto":
         return near
-    from nbodyax.physics.barneshut import (_SLOTS_PREFERRED_N,
-                                           _resolve_near_pallas)
+    from nbodyax.physics.barneshut import _SLOTS_PREFERRED_N
     n = getattr(cfg, "particle_count", 0)
-    if _resolve_near_pallas(getattr(cfg, "bh_pallas", "auto"), "slots"):
-        return "slots"
     return "slots" if n >= _SLOTS_PREFERRED_N else "rows"
 
 
@@ -60,7 +49,6 @@ def build_accum_fn(backend: str, p: PhysicsParams, cfg=None):
                        far=getattr(cfg, "bh_far", "fmm"),
                        near=_resolve_near(cfg),
                        comp_cap=getattr(cfg, "bh_comp_cap", 0),
-                       near_pallas=getattr(cfg, "bh_pallas", "auto"),
                        n_giants=getattr(cfg, "bh_giants", 1024))
     backend = resolve_backend(backend)
     if backend == "jnp":

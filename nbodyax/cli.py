@@ -22,7 +22,7 @@ from nbodyax.driver import run_simulation
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="nbodyax",
-        description="TPU-native 2-D n-body simulation with collisions")
+        description="n-body simulation with collisions")
     ap.add_argument("--config", default="nbodyConfig.txt",
                     help="config file (reference nbodyConfig.txt format)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -43,6 +43,8 @@ def main(argv=None) -> int:
                          "in checkpointPath)")
     args = ap.parse_args(argv)
 
+    from nbodyax.cache import enable_compile_cache
+    enable_compile_cache()
     if args.debug_nans:
         import jax
         jax.config.update("jax_debug_nans", True)

@@ -64,7 +64,7 @@ class SimConfig:
     The first block mirrors ``struct ConfigData``
     (``/root/reference/include/nbodyConfig.h:4-19``) with identical defaults to
     the shipped ``nbodyConfig.txt`` scene (``/root/reference/nbodyConfig.txt``).
-    The second block is new, TPU-framework-only configuration.
+    The second block is configuration the framework adds.
     """
 
     # --- reference-compatible fields (nbodyConfig.h:4-19) ---
@@ -139,17 +139,13 @@ class SimConfig:
                                           # measured overflow at startup)
     bh_order: int = 2                     # far-field expansion: 1=monopole,
                                           # 2=+quadrupole (default: ~5x less
-                                          # error, measured no slower on v5e)
+                                          # error; its cost on the GPU is
+                                          # not yet measured)
     bh_far: str = "fmm"                   # far-field engine: fmm (dense
                                           # local expansions, zero window
                                           # gathers + exact-target annulus)
                                           # | direct (gathered per-cell
                                           # windows, exact target)
-    bh_pallas: str = "auto"               # fused Pallas near-field kernel
-                                          # for bhNear=slots: auto (on TPU
-                                          # hardware) | on (anywhere; CPU
-                                          # interprets — tests only) | off
-                                          # (jnp engine)
     bh_comp_cap: int = 0                  # completion-pass budget: bodies
                                           # past their cell's fast-pass slot
                                           # cap finished exactly per-body
@@ -164,7 +160,6 @@ class SimConfig:
                                           # r_i+r_j <= ring*cell; merged
                                           # giants outgrow it) — O(N*B)
                                           # collision-only pass; 0 = off
-                                          # (single-device bh only)
     bh_adapt: bool = True                 # driver self-tuning between log
                                           # windows: widen bhNeighborK when
                                           # bh_overflow is logged, coarsen
@@ -270,8 +265,6 @@ class SimConfig:
                 raise ConfigError("bhFar must be fmm or direct")
             if self.bh_near not in ("auto", "rows", "slots"):
                 raise ConfigError("bhNear must be auto, rows or slots")
-            if self.bh_pallas not in ("auto", "on", "off"):
-                raise ConfigError("bhPallas must be auto, on or off")
         return self
 
 
@@ -313,7 +306,6 @@ _KEYS = {
     "bhNeighborK": ("bh_neighbor_k", _stoi),
     "bhCompCap": ("bh_comp_cap", _stoi),
     "bhGiants": ("bh_giants", _stoi),
-    "bhPallas": ("bh_pallas", lambda s, k: s.strip()),
     "bhOrder": ("bh_order", _stoi),
     # (bhFar once used bare ``str`` here, which explodes under the
     # parser(value, key) call convention — keep the two-arg lambda form)

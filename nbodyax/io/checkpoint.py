@@ -41,9 +41,8 @@ def save_checkpoint(directory: str, state: SimState, *,
     """``extra``: scalar metadata persisted alongside the state under
     ``meta_``-prefixed keys (the driver stores its ADAPTED bh knobs here,
     so a fresh process resuming mid-merger jumps straight to the working
-    knob set instead of re-walking every adapt recompile — r5 soak: the
-    re-walk was ~6 multi-minute recompiles per restart, and the
-    accumulated graphs themselves pressured the worker into crashing)."""
+    knob set instead of re-walking every adapt recompile, several
+    multi-minute recompiles per restart)."""
     os.makedirs(directory, exist_ok=True)
     step = int(np.asarray(state.step))
     path = os.path.join(directory, f"step_{step:09d}.npz")

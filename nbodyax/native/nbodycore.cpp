@@ -3,7 +3,7 @@
 // The reference implements its host layer in C++ (RNG at
 // /root/reference/include/jbutil.h:514-562, scene init at
 // /root/reference/src/nbody.cu:406-416, PGM writer at
-// /root/reference/src/nbody.cu:350-371). This library provides the TPU
+// the reference's src/nbody.cu:350-371). This library provides the
 // framework's native equivalents:
 //
 //  - the Numerical-Recipes "Ranq1-style" combined LCG/xorshift/MWC generator

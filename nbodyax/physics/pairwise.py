@@ -26,7 +26,7 @@ All pair math is chunked over i so peak memory is O(chunk * N), computed with
 
 Every reduction here is associative over the j set, so partial accumulators
 from disjoint j sets combine exactly — this is what lets the same semantics
-ride the cross-shard ring (sharding/ring.py) and the Pallas j-tile loop
+ride the cross-shard ring (sharding/ring.py) and the kernel's j-tile loop
 (physics/kernels.py). Combination rules: force/gained_* add, died ORs,
 (best_mass, parent) max-reduces with lowest-index tie-break, dv adds.
 """
@@ -41,6 +41,9 @@ from jax import lax
 
 __all__ = ["PairAccumulators", "pair_accumulators", "pair_accumulators_chunk",
            "combine_accumulators", "empty_accumulators"]
+
+# f32 reductions stay f32: a GPU may otherwise run an f32 einsum in TF32
+_EXACT = lax.Precision.HIGHEST
 
 
 class PairAccumulators(NamedTuple):
@@ -143,7 +146,8 @@ def pair_accumulators_chunk(pi, vi, mi, ri, ii, pos, vel, mass, radius, jj, *,
         inv = lax.rsqrt(jnp.where(safe, d2_eff, 1.0))
         w = jnp.where(safe, mass[None, :] * (inv * inv * inv),
                       0.0)  # m_j / d_eff^3
-        out = out._replace(force=jnp.einsum("cn,cnd->cd", w, dp))
+        out = out._replace(force=jnp.einsum("cn,cnd->cd", w, dp,
+                                            precision=_EXACT))
 
     if mode == "reference":
         heavier = mi[:, None] >= mass[None, :]         # nbody.cu:215 (>= : Q1)
@@ -181,7 +185,8 @@ def pair_accumulators_chunk(pi, vi, mi, ri, ii, pos, vel, mass, radius, jj, *,
                          2.0 * mass[None, :] / msum * vdotp
                          / jnp.where(d2 > 0, d2, 1.0),
                          0.0)
-        out = out._replace(dv=jnp.einsum("cn,cnd->cd", coef, dp))
+        out = out._replace(dv=jnp.einsum("cn,cnd->cd", coef, dp,
+                                         precision=_EXACT))
     elif mode != "none":
         raise ValueError(f"unknown collision mode {mode!r}")
 

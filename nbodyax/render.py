@@ -1,6 +1,6 @@
 """Frame rendering: rasterizer + PGM writer + async frame pipeline.
 
-TPU-native replacement for the reference's ``generateImage`` kernel and
+Device-side replacement for the reference's ``generateImage`` kernel and
 ``saveImageToDisk`` (/root/reference/src/nbody.cu:294-371):
 
 - Pixel mapping is reference-exact: center pixel = C-truncation of

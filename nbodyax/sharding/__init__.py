@@ -1,8 +1,8 @@
-"""Multi-chip scaling: mesh setup + ppermute ring all-gather.
+"""Multi-device scaling: mesh setup + ppermute ring all-gather.
 
 The reference is single-GPU/single-process (SURVEY.md section 2.2); this
 package provides the scale-out the north star requires: bodies sharded over a
-``jax.sharding.Mesh`` axis, with remote body tiles circulating around the ICI
+``jax.sharding.Mesh`` axis, with remote body tiles circulating around a
 ring via ``lax.ppermute`` so every shard sees all N bodies each step — the
 distributed generalization of the reference's rotating shared-memory tile
 schedule (/root/reference/src/nbody.cu:186).

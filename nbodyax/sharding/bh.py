@@ -18,24 +18,25 @@ lanes, and rides one ``psum_scatter`` that hands every shard exactly its
 local body slice (no second gather).
 
 Why compute-parallel is the right trade at the 4M/8-shard target (per-device
-accounting; see also BENCHMARKS.md):
+accounting):
 
-- **ICI**: one all_gather of (pos, vel, mass, radius) = 24 B/body (96 MB at
-  N=4M received per device per pass) + one psum_scatter of the merged
-  accumulator lanes (~(2*dim+4) f32 = 32 B/body in 2-D). At v5e ICI
-  bandwidth that is milliseconds, against an O(N*levels) bh evaluation that
-  takes ~seconds at this N (BENCHMARKS.md config 6). Momentum mode gathers
-  the accumulators back once more (~36 B/body) — still noise.
-- **HBM**: gathered arrays (24 B/body) + sorted packed partner features
-  (24 B/body: 6 f32 lanes — 8 in elastic mode, which also packs partner
-  velocities; ids split across two exactly-f32-representable lanes, exact
-  at any i32 N, barneshut._pack_id) + sort/index arrays (~12 B/body) +
+- **Interconnect**: one all_gather of (pos, vel, mass, radius) = 24 B/body
+  (96 MB at N=4M received per device per pass) + one psum_scatter of the
+  merged accumulator lanes (~(2*dim+4) f32 = 32 B/body in 2-D). At NVLink's
+  450 GB/s each way that is well under a millisecond, small next to an
+  O(N*levels) bh evaluation at this N. Momentum mode gathers the
+  accumulators back once more (~36 B/body) — still noise.
+- **Device memory**: gathered arrays (24 B/body) + sorted packed partner
+  features (24 B/body: 6 f32 lanes — 8 in elastic mode, which also packs
+  partner velocities; ids split across two exactly-f32-representable
+  lanes, exact at any i32 N, barneshut._pack_id) + sort/index arrays
+  (~12 B/body) +
   level grids (24 B * 4^levels, ~6 MB at levels=10)
-  ~= 60-68 B/body ~= 240-272 MB at N=4M on a 16 GB chip.
+  ~= 60-68 B/body ~= 240-272 MB at N=4M on an 80 GB card.
 - Therefore O(N) replication only becomes a binding constraint beyond ~10^8
   bodies; space-partitioned sharding (contiguous cell ranges per shard +
   ring-halo exchange, O(N/P) memory) buys nothing at any currently
-  reachable scale. Future work, NEXT.md.
+  reachable scale.
 
 Collision resolution and integration mirror sharding/ring.py exactly.
 """
@@ -94,7 +95,6 @@ def make_sharded_bh_step(cfg: SimConfig,
                 far=getattr(cfg, "bh_far", "fmm"),
                 near=_resolve_near(cfg),
                 comp_cap=getattr(cfg, "bh_comp_cap", 0),
-                near_pallas=getattr(cfg, "bh_pallas", "auto"),
                 n_giants=getattr(cfg, "bh_giants", 1024))
             sc = lambda x: lax.psum_scatter(x, AXIS, scatter_dimension=0,
                                             tiled=True)

@@ -1,8 +1,8 @@
 """Device mesh setup and state sharding.
 
 The communication backend is XLA collectives over the mesh (ppermute /
-all_gather / pmin), lowering to ICI within a slice and DCN across slices —
-there is no NCCL/MPI analog to manage (SURVEY.md section 5, "Distributed
+all_gather / pmin), which XLA hands to NCCL on GPUs — there is no
+communicator to manage by hand (SURVEY.md section 5, "Distributed
 communication backend"). Multi-host process bring-up goes through
 ``jax.distributed.initialize`` (guarded: single-process runs skip it).
 """
@@ -28,8 +28,8 @@ AXIS = "shard"
 def maybe_init_distributed() -> None:
     """Multi-host bring-up when launched under a JAX-aware launcher.
 
-    Single-process (the common case, incl. tests) is a no-op. Multi-host TPU
-    pods set JAX_COORDINATOR_ADDRESS / megascale env vars; jax.distributed
+    Single-process (the common case, incl. tests) is a no-op. Multi-host
+    launchers set JAX_COORDINATOR_ADDRESS; jax.distributed
     reads the address directly and auto-detects process count/id on managed
     clusters (SLURM, OpenMPI, GKE). Plain launchers (ssh loops, the
     2-process smoke test) have no cluster detector, so JAX_NUM_PROCESSES /
@@ -52,8 +52,8 @@ def maybe_init_distributed() -> None:
 
 def make_mesh(n_shards: int, devices=None) -> Mesh:
     """1-D mesh over the first n_shards devices (ring order = device order;
-    on a v5e slice consecutive devices are ICI neighbors, so ppermute hops
-    ride the ring)."""
+    the GPUs of one host are joined all to all, so the order costs
+    nothing)."""
     devices = devices if devices is not None else jax.devices()
     if n_shards > len(devices):
         raise ValueError(

@@ -4,7 +4,7 @@ The distributed generalization of the reference's rotating shared-memory tile
 schedule — tile k for thread t starts at ``(t + 128k) mod N``
 (/root/reference/src/nbody.cu:186) — lifted from CUDA thread blocks to mesh
 devices: each shard keeps its resident i-bodies and accumulators; the j-tile
-(pos/vel/mass/radius + its global offset) circulates around the ICI ring with
+(pos/vel/mass/radius + its global offset) circulates around the ring with
 ``lax.ppermute``. After P hops every shard has folded all N bodies into its
 accumulators, exactly the ring-attention dataflow with (pos, mass, radius) in
 the KV role and force/merge partial sums as the running state (SURVEY.md
@@ -88,7 +88,7 @@ def ring_accumulators(pos, vel, mass, radius, *, n_shards: int,
 
     ``need_vel=False`` (gravity/merge modes — only the elastic impulse reads
     partner velocities) drops vel from the circulating tile: 8 of 24 bytes
-    per body per hop of ICI traffic saved.
+    per body per hop of interconnect traffic saved.
     """
     n_local = pos.shape[0]
     me = lax.axis_index(AXIS)

@@ -1,6 +1,6 @@
 """Simulation state pytree.
 
-TPU-native replacement for the reference's ``BodiesData`` contiguous SoA blob
+Replacement for the reference's ``BodiesData`` contiguous SoA blob
 (``/root/reference/src/nbody.cu:47-124``). Instead of a host-owned allocation
 mirrored to the device with per-step PCIe round trips and host compaction
 (nbody.cu:476-510, quirk Q9 in SURVEY.md), state is a fixed-capacity JAX pytree
@@ -78,7 +78,7 @@ def compact_state(state: SimState, *, min_capacity: int = 256,
                   slack: float = 1.25) -> SimState:
     """Shrink capacity to the next power-of-2 bucket above the live count.
 
-    The TPU analog of the reference's per-step host compaction
+    The device-side analog of the reference's per-step host compaction
     (/root/reference/src/nbody.cu:488-510): as merges kill bodies, the
     all-pairs cost should track the live count, not the initial one. Shapes
     stay static per bucket (log2-bounded recompiles instead of the reference's

@@ -196,7 +196,7 @@ def test_ring_3d_matches_dense(mode):
                                   np.asarray(dense.mass) > 0)
 
 
-def test_split_step_3d_matches_monolithic():
+def test_split_step_3d_matches_monolithic(kernel_interpreter):
     from nbodyax.physics.step import make_split_step
     pos, vel, mass, radius = random_state_3d(100, seed=47, field=500.0)
     p = PhysicsParams(dt=0.2, field_width=1000, field_height=1000,

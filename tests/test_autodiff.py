@@ -157,7 +157,7 @@ def test_grad_through_sharded_ring_matches_single_device():
 
 
 # ---------------------------------------------------------------------------
-# Pallas-backend VJP (physics/kernels_bwd.py via jax.custom_vjp in kernels.py)
+# Pallas-backend VJP (jax.custom_vjp in kernels.py over raw_reference)
 # ---------------------------------------------------------------------------
 
 def _accum_grads(fn, state, mode, eps, dim):
@@ -183,16 +183,19 @@ def _accum_grads(fn, state, mode, eps, dim):
     ("none", 5.0, 2), ("reference", 0.0, 2), ("reference", 5.0, 3),
     ("momentum", 0.0, 2), ("elastic", 0.0, 2), ("elastic", 5.0, 3)])
 def test_pallas_vjp_matches_jnp(mode, eps, dim):
-    # the analytic backward Pallas pass must reproduce jax.grad of the jnp
-    # oracle exactly (same event gating, incl. dead-body pairs): interpret
-    # mode on CPU, overlapping radii so every collision channel carries
-    # signal, two dead bodies so alive-gating is exercised
+    # the kernel's custom VJP must reproduce jax.grad of the jnp oracle
+    # exactly (same event gating, incl. dead-body pairs): interpret mode on
+    # CPU, overlapping radii so every collision channel carries signal, two
+    # dead bodies so alive-gating is exercised
+    from functools import partial
+
     from nbodyax.physics.kernels import pallas_pair_accumulators
 
     state = small_state(11, dim=dim, overlapping=True)
     state = state._replace(mass=state.mass.at[3].set(0.0).at[7].set(0.0))
     gj = _accum_grads(pair_accumulators, state, mode, eps, dim)
-    gp = _accum_grads(pallas_pair_accumulators, state, mode, eps, dim)
+    gp = _accum_grads(partial(pallas_pair_accumulators, interpret=True),
+                      state, mode, eps, dim)
     for name, a, b in zip(("pos", "vel", "mass", "radius"), gj, gp):
         a, b = np.asarray(a), np.asarray(b)
         assert np.all(np.isfinite(a)), (mode, name, "jnp grad not finite")
@@ -220,7 +223,7 @@ def test_pallas_rollout_grad_matches_jnp(mode):
             mode=mode)),
         "pallas": make_step(p, accum_fn=partial(
             pallas_pair_accumulators, eps=p.eps, growth_rate=p.growth_rate,
-            mode=mode))}
+            mode=mode, interpret=True))}
     grads = {}
     for name, step in steps.items():
         loss = make_loss(step, 4, target_loss)
@@ -238,7 +241,7 @@ def test_pallas_rollout_grad_matches_jnp(mode):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("mode", ["reference", "elastic"])
-def test_grad_through_sharded_pallas_ring(mode):
+def test_grad_through_sharded_pallas_ring(mode, kernel_interpreter):
     # the custom VJP composes with shard_map/ppermute: distributed Pallas
     # gradients == single-device jnp gradients (f32 reduction noise only)
     from nbodyax.sharding.mesh import make_mesh

@@ -132,8 +132,8 @@ def test_dead_bodies_excluded(near):
 
 
 def test_auto_levels():
-    # target occupancy 16 (v5e-tuned: near field is cap-bound, far field
-    # pays per level — see auto_levels docstring)
+    # target occupancy 16 (near field is cap-bound, far field pays per
+    # level — see auto_levels docstring)
     assert auto_levels(1024) == 3
     assert auto_levels(1_000_000) == 8
     assert auto_levels(100_000_000) == 10  # capped
@@ -150,7 +150,7 @@ def test_slot_cap_density_aware():
     assert slot_cap(1 << 20, 1 << 14) == 128       # occupancy 64
     assert slot_cap(100, 64) == 32                 # tiny: floor
     assert slot_cap(1 << 24, 16) == 1024           # ceiling
-    # always sublane-aligned and >= 2x occupancy (until the ceiling)
+    # always a multiple of 8 and >= 2x occupancy (until the ceiling)
     for n, c in [(1000, 30), (5000, 12), (12345, 67)]:
         cap = slot_cap(n, c)
         assert cap % 8 == 0 and (cap >= 2 * (n // c) or cap == 1024)
@@ -340,98 +340,6 @@ def test_percell_completion_pass_exact_in_crowded_cell():
     np.testing.assert_array_equal(np.asarray(bh.died), np.asarray(ex.died))
     np.testing.assert_allclose(np.asarray(bh.gained_mass),
                                np.asarray(ex.gained_mass), rtol=1e-5)
-
-
-@pytest.mark.parametrize("mode,dim,ring", [
-    ("reference", 2, 1), ("momentum", 2, 1), ("elastic", 2, 1),
-    ("reference", 3, 1), ("momentum", 3, 1), ("elastic", 3, 1),
-    ("reference", 2, 2),      # 5-cell windows: the generic koff/mask path
-])
-def test_pallas_near_matches_jnp_slots(mode, dim, ring):
-    """The fused Pallas slots near kernel (physics/near_pallas.py, run in
-    interpret mode on CPU) must reproduce the jnp slots engine: identical
-    partner sets and per-pair semantics, float channels to accumulation-
-    order tolerance, id/bool channels exactly — including a crowded cell
-    (completion-pass interplay), a dead body, and out-of-grid window edges
-    (the geometry masks are computed in-kernel from static g)."""
-    import jax.numpy as jnp
-    from nbodyax.physics.barneshut import _extent, _near_field_cells
-
-    rng = np.random.RandomState(5)
-    n = 2048
-    pos = rng.uniform(-1000, 1000, (n, dim)).astype(np.float32)
-    pos[-200:] = rng.uniform(-20, 20, (200, dim)).astype(np.float32)
-    vel = rng.uniform(-3, 3, (n, dim)).astype(np.float32)
-    mass = rng.uniform(1, 100, n).astype(np.float32)
-    mass[7] = 0.0
-    radius = rng.uniform(1, 12, n).astype(np.float32)
-    ext = _extent(jnp.asarray(pos), jnp.asarray(mass) > 0)
-    lv = 3 if dim == 3 else 4
-    args = (ext, lv, ring, jnp.float32(50.0) ** 2, jnp.float32(0.1), mode,
-            40)
-    a = _near_field_cells(pos, vel, mass, radius, *args, ci_cap=32,
-                          near="slots", pallas_near=False)
-    b = _near_field_cells(pos, vel, mass, radius, *args, ci_cap=32,
-                          near="slots", pallas_near=True)
-    for name in {"reference": ["force", "gained_mass", "gained_radius"],
-                 "momentum": ["force", "best_mass"],
-                 "elastic": ["force", "dv"]}[mode]:
-        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
-        fin = np.isfinite(x)                     # -inf best_mass sentinels
-        np.testing.assert_array_equal(fin, np.isfinite(y), err_msg=name)
-        # mask BEFORE subtracting: -inf - -inf on the masked lanes would
-        # emit an invalid-value RuntimeWarning (nan) even though discarded
-        err = np.max(np.abs(np.where(fin, x, 0.0) - np.where(fin, y, 0.0)))
-        assert err <= 2e-5 * max(1e-30, np.max(np.abs(np.where(fin, x, 0.0)))), \
-            (name, err)
-    np.testing.assert_array_equal(np.asarray(a.died), np.asarray(b.died))
-    np.testing.assert_array_equal(np.asarray(a.parent), np.asarray(b.parent))
-
-
-@pytest.mark.parametrize("mode", ["reference", "momentum", "elastic"])
-def test_pallas_near_empty_blocks(mode):
-    """Clustered scenes leave whole kernel cell blocks with no alive slot;
-    the kernel skips their window DMAs and pair math (pl.when) and must
-    write the exact dead-row outputs the full pair math would produce —
-    zeros, and for momentum the no-candidate sentinel with the slots' own
-    id lanes. lv=5 (1024 cells) against block_cells=256 gives 4 grid
-    programs; everybody lives in the bottom rows except two extent-
-    stretching outliers in the top row, so the middle programs are
-    all-empty."""
-    import jax.numpy as jnp
-    from nbodyax.physics.barneshut import _extent, _near_field_cells
-    from nbodyax.physics.near_pallas import block_cells
-
-    rng = np.random.RandomState(11)
-    n = 1024
-    pos = np.empty((n, 2), np.float32)
-    pos[:, 0] = rng.uniform(-1000, 1000, n)
-    pos[:, 1] = rng.uniform(-1000, -850, n)       # bottom 2-3 cell rows
-    pos[0] = (-990.0, 990.0)                       # extent stretchers
-    pos[1] = (990.0, 995.0)
-    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
-    mass = rng.uniform(1, 100, n).astype(np.float32)
-    mass[3] = 0.0
-    radius = rng.uniform(1, 30, n).astype(np.float32)
-    ext = _extent(jnp.asarray(pos), jnp.asarray(mass) > 0)
-    assert block_cells(1 << 10, 32, 120) == 256    # 4 programs at lv=5
-    args = (ext, 5, 1, jnp.float32(50.0) ** 2, jnp.float32(0.1), mode, 40)
-    a = _near_field_cells(pos, vel, mass, radius, *args, ci_cap=32,
-                          near="slots", pallas_near=False)
-    b = _near_field_cells(pos, vel, mass, radius, *args, ci_cap=32,
-                          near="slots", pallas_near=True)
-    for name in {"reference": ["force", "gained_mass", "gained_radius"],
-                 "momentum": ["force", "best_mass"],
-                 "elastic": ["force", "dv"]}[mode]:
-        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
-        fin = np.isfinite(x)
-        np.testing.assert_array_equal(fin, np.isfinite(y), err_msg=name)
-        # zero the non-finite lanes BEFORE subtracting (-inf - -inf warns)
-        err = np.max(np.abs(np.where(fin, x, 0.0) - np.where(fin, y, 0.0)))
-        assert err <= 2e-5 * max(1e-30, np.max(np.abs(np.where(fin, x, 0.0)))), \
-            (name, err)
-    np.testing.assert_array_equal(np.asarray(a.died), np.asarray(b.died))
-    np.testing.assert_array_equal(np.asarray(a.parent), np.asarray(b.parent))
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -635,9 +543,9 @@ def test_needed_neighbor_k_is_minimal():
 
 
 def test_pick_levels_size_preference(monkeypatch):
-    """Above the measured rows/slots crossover (~1.5M bodies; A/B records in
-    bench/results_r2_near.json) auto prefers the slots engine even when the
-    rows engine would not overflow. Exercised at test scale by lowering the
+    """Above the rows/slots crossover (~1.5M bodies, _SLOTS_PREFERRED_N)
+    auto prefers the slots engine even when the rows engine would not
+    overflow. Exercised at test scale by lowering the
     threshold constant."""
     from nbodyax.config import SimConfig
     from nbodyax.physics import barneshut
@@ -656,7 +564,7 @@ def test_pick_levels_size_preference(monkeypatch):
 @pytest.mark.parametrize("ring", [1, 2])
 @pytest.mark.parametrize("order", [1, 2])
 def test_m2l_conv_matches_scan(dim, ring, order):
-    """The parent-folded conv M2L (_m2l_level_conv — one MXU conv per level
+    """The parent-folded conv M2L (_m2l_level_conv — one conv per level
     instead of one padded-grid slice per offset) must reproduce the offset-
     scan M2L to f32 rounding. The parity-restriction rule at the extreme
     offsets is exactly what confines the folded kernel to parent offsets
@@ -680,146 +588,12 @@ def test_m2l_conv_matches_scan(dim, ring, order):
     assert np.abs(a - b).max() < 2e-6 * scale
 
 
-@pytest.mark.parametrize("case", [
-    (4096, 16, 8, False, 2, False),   # uniform 2-D
-    (4096, 16, 8, True, 2, False),    # crowded cells (fallback or tight fit)
-    (2048, 32, 6, False, 2, True),    # elastic feature layout (L = 2d+4)
-    (4096, 8, 12, False, 3, False),   # 3-D octree grid
-])
-def test_slot_pack_kernel_matches_gather(case):
-    """The Pallas slot-pack build (physics/slotpack_pallas.py: block DMA +
-    VMEM re-spacing, emitting the near kernel's jrows layout directly) must
-    reproduce gather + transpose + pad BITWISE — it is pure data movement,
-    and the runtime lax.cond fallback must keep clustered states exact."""
-    import jax.numpy as jnp
-    from nbodyax.physics.barneshut import (_build_slot_grid, _extent,
-                                           _partner_structure)
-    from nbodyax.physics.slotpack_pallas import (SPAD, build_jrows_pallas,
-                                                 slot_pack_plan)
-    n, g, S, hot, dim, need_vel = case
-    ncells = g ** dim
-    rng = np.random.RandomState(7)
-    pos = rng.uniform(-1000, 1000, (n, dim)).astype(np.float32)
-    mass = rng.uniform(1, 10, n).astype(np.float32)
-    mass[rng.rand(n) < 0.1] = 0.0                  # dead bodies
-    if hot:
-        pos[: n // 2] = rng.uniform(-10, 10, (n // 2, dim))
-    vel = rng.uniform(-1, 1, (n, dim)).astype(np.float32)
-    radius = rng.uniform(1, 2, n).astype(np.float32)
-    ext = _extent(jnp.asarray(pos), jnp.asarray(mass) > 0)
-    _, _, starts, ends, sf = _partner_structure(
-        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass),
-        jnp.asarray(radius), ext, g, need_vel)
-    fslot = _build_slot_grid(sf, starts, ends, n, ncells, S)
-    ref = jnp.pad(fslot.transpose(0, 2, 1),
-                  ((0, 0), (0, 0), (0, SPAD - S)))
-    plan = slot_pack_plan(n, ncells, S)
-    assert plan is not None
-    out = build_jrows_pallas(sf, starts, ends, n, ncells, S, plan,
-                             interpret=True)
-    assert jnp.array_equal(ref, out)
-
-
-@pytest.mark.parametrize("case", [
-    (4096, 16, 8, False, 2, False),   # uniform 2-D quadtree (kernel path)
-    (4096, 8, 12, False, 3, False),   # uniform 3-D octree (kernel path)
-    (4096, 16, 8, True, 2, False),    # crowded cell -> uncapped-span fallback
-    (4096, 16, 8, "last", 2, False),  # block-LAST hot cell -> jrows keeps
-                                      # the pack kernel, moments scatter
-    (2048, 32, 6, False, 2, True),    # elastic feature layout (L = 2d+4)
-])
-def test_slot_pack_fused_moments_match_scatter(case):
-    """The slot-pack kernel's second output — order-2 finest-level FMM
-    moments reduced in VMEM via two HIGHEST-precision MXU matmuls against
-    the block membership mask (_pack_mom_kernel) — must reproduce the
-    N-row scatter `_finest_moments_scatter` it replaces, on BOTH cond
-    branches, to f32 sum-order tolerance (the kernel path accumulates in
-    sorted order vs the scatter's body-id order; the fallback IS the
-    scatter, but XLA orders duplicate-index scatter-add accumulation per
-    compilation, so even that branch is tolerance-comparable only).
-    Exactness requires the FULL cell populations resident (jrows caps at
-    S slots/cell; the moments must not), so the crowded case also pins
-    the tightened uncapped-span fit predicate: a hot cell past the static
-    capacity must select the fallback, not emit silently truncated
-    moments."""
-    import jax.numpy as jnp
-    from nbodyax.physics.barneshut import (_build_slot_grid, _extent,
-                                           _finest_moments_scatter,
-                                           _partner_structure)
-    from nbodyax.physics.slotpack_pallas import (SPAD, build_jrows_pallas,
-                                                 slot_pack_plan)
-    n, g, S, hot, dim, need_vel = case
-    levels = g.bit_length() - 1
-    ncells = g ** dim
-    rng = np.random.RandomState(11)
-    # field-scale coordinates: the bf16-MXU rounding regression this kernel
-    # had (2^-9 * |center| ~ 400 swamping the ~cell-size offsets) only
-    # shows at |pos| >> cell size, so keep the scale realistic
-    pos = rng.uniform(-1e5, 1e5, (n, dim)).astype(np.float32)
-    mass = rng.uniform(1e4, 1e17, n).astype(np.float32)
-    mass[rng.rand(n) < 0.1] = 0.0                  # dead bodies
-    if hot == "last":
-        # 95% of bodies in the LAST finest cell (max corner -> highest flat
-        # id -> last cell of the last 128-cell block): its own count breaks
-        # only the moments' uncapped-span predicate — later cells' starts
-        # are unaffected — so the nested cond must keep the pack kernel for
-        # jrows while the moments take the scatter (the galaxy-core regime
-        # ADVICE r3 item 4 flags)
-        pos[: n - n // 16] = rng.uniform(
-            9.5e4, 1e5, (n - n // 16, dim))
-    elif hot:
-        # 95% of bodies in one MID-BLOCK finest cell: the inflated starts
-        # of every later cell in the block break the jrows predicate too —
-        # the whole build takes the gather + scatter fallback
-        pos[: n - n // 16] = rng.uniform(-10, 10, (n - n // 16, dim))
-    vel = rng.uniform(-1, 1, (n, dim)).astype(np.float32)
-    radius = rng.uniform(50, 200, n).astype(np.float32)
-    ext = _extent(jnp.asarray(pos), jnp.asarray(mass) > 0)
-    _, _, starts, ends, sf = _partner_structure(
-        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass),
-        jnp.asarray(radius), ext, g, need_vel)
-    plan = slot_pack_plan(n, ncells, S, sf.shape[1])
-    assert plan is not None
-    # assert the INTENDED branch: the moments path's tightened fit
-    # predicate (whole uncapped block span + one alignment tile resident)
-    cb, cap = plan
-    rel = np.asarray(starts).reshape(-1, cb)
-    rel = rel - rel[:, :1]
-    cnt = np.asarray(ends - starts).reshape(-1, cb)
-    fits_j = rel[:, -1].max() + 3 * SPAD <= cap
-    fits_m = fits_j and (rel[:, -1] + cnt[:, -1]).max() + SPAD <= cap
-    assert (fits_j, fits_m) == {False: (True, True),
-                                "last": (True, False),
-                                True: (False, False)}[hot]
-    jrows, finest = build_jrows_pallas(
-        sf, starts, ends, n, ncells, S, plan,
-        moments=(jnp.asarray(pos), jnp.asarray(mass), ext, levels),
-        interpret=True)
-    ref_mom = _finest_moments_scatter(jnp.asarray(pos), jnp.asarray(mass),
-                                      ext, levels)
-    assert finest.shape == ref_mom.shape
-    scale = np.abs(np.asarray(ref_mom)).max(axis=0)   # per-channel scale
-    err = np.abs(np.asarray(finest) - np.asarray(ref_mom)).max(axis=0)
-    assert (err <= 2e-6 * np.maximum(scale, 1.0)).all()
-    # the jrows output must stay bitwise-equal to the gather on both paths
-    fslot = _build_slot_grid(sf, starts, ends, n, ncells, S)
-    ref_rows = jnp.pad(fslot.transpose(0, 2, 1),
-                       ((0, 0), (0, 0), (0, SPAD - S)))
-    assert jnp.array_equal(ref_rows, jrows)
-
-
-def test_slot_pack_declines_wide_feature_rows_3d_elastic():
-    """3-D elastic packs 2*dim+4 = 10 feature lanes — more than the pack
-    kernel's 8-sublane DMA buffer. slot_pack_plan must decline (gather
-    fallback) instead of tracing a negative pad (regression: crashed with
-    'index can't contain negative values'), and the full accumulator path
-    must run."""
+def test_slots_3d_elastic_runs_finite():
+    """3-D elastic packs 2*dim+4 = 10 feature lanes into the slot grid; the
+    full accumulator path must run and stay finite."""
     import jax.numpy as jnp
 
     from nbodyax.physics.barneshut import bh_accumulators
-    from nbodyax.physics.slotpack_pallas import slot_pack_plan
-    assert slot_pack_plan(4096, 4096, 40, L=10) is None
-    assert slot_pack_plan(4096, 4096, 40, L=8) is not None
     n = 2048
     rng = np.random.RandomState(3)
     pos = jnp.asarray(rng.uniform(-1e4, 1e4, (n, 3)).astype(np.float32))
@@ -828,11 +602,6 @@ def test_slot_pack_declines_wide_feature_rows_3d_elastic():
     radius = jnp.full((n,), 10.0, jnp.float32)
     acc = bh_accumulators(pos, vel, mass, radius, eps=50.0, growth_rate=0.1,
                           mode="elastic", levels=4, ring=1, neighbor_k=40,
-                          order=2, near="slots", near_pallas="on")
+                          order=2, near="slots")
     assert bool(jnp.all(jnp.isfinite(acc.force)))
     assert bool(jnp.all(jnp.isfinite(acc.dv)))
-
-
-# (a second, near-duplicate moments-vs-scatter test once lived here; merged
-# into test_slot_pack_fused_moments_match_scatter above — its one unique
-# case, the elastic feature layout, rides that test's parametrization now)

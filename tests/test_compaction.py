@@ -97,7 +97,8 @@ def test_driver_compacts_sharded():
                                rtol=1e-5, atol=1e-4)
 
 
-def test_single_device_compaction_rebuilds_step(monkeypatch):
+def test_single_device_compaction_rebuilds_step(monkeypatch,
+                                                kernel_interpreter):
     """Capacity-derived step choices (split-dispatch n_splits) must be
     rebuilt after a shards==1 compaction: a stale build kept a compacted
     run paying the original capacity's dispatch count per step."""

@@ -59,6 +59,15 @@ def test_unknown_key_warn_ignored(capsys):
     assert "Invalid variable: bogusKey" in capsys.readouterr().err
 
 
+def test_removed_bh_pallas_key_warn_ignored(capsys):
+    # bhPallas selected a near-field kernel that no longer exists; old
+    # config files that still set it parse like any other unknown key
+    cfg = parse_config_text("forceModel=bh\nbhPallas=on\nparticleCount=9\n")
+    assert cfg.particle_count == 9 and cfg.force_model == "bh"
+    assert not hasattr(cfg, "bh_pallas")
+    assert "Invalid variable: bhPallas" in capsys.readouterr().err
+
+
 def test_line_without_equals_ignored(capsys):
     cfg = parse_config_text("garbage line\nparticleCount=3\n")
     assert cfg.particle_count == 3

@@ -1,8 +1,9 @@
 """Pallas kernel equivalence vs the jnp oracle (SURVEY.md section 4.3).
 
 Runs in interpreter mode on CPU (the kernel itself is identical; only the
-Mosaic lowering is skipped). Covers all collision modes, N not divisible by
-the tiles, dead slots, and offset (ring-hop style) invocation.
+GPU compilation is skipped; tests/test_device_choice.py runs it compiled on
+a GPU). Covers all collision modes, N not divisible by the tiles, dead
+slots, and offset (ring-hop style) invocation.
 """
 
 import numpy as np
@@ -43,12 +44,11 @@ def assert_equivalent(a, b, mode):
     if mode == "elastic":
         da, db = np.asarray(a.dv), np.asarray(b.dv)
         scale = max(np.abs(db).max(), 1e-30)
-        # dv gates at 1e-5, not the force channel's 2e-6: the kernel's
-        # impulse denominator uses the fast hardware reciprocal + one
-        # Newton step (~5e-6 relative; kernels.py elastic block), a
-        # deliberate precision/throughput trade (1.034e11 -> 1.125e11
-        # pairs/s) that stays far tighter than any physical meaning of a
-        # velocity impulse while still catching structural bugs
+        # dv gates at 1e-5, not the force channel's 2e-6: the kernel sums
+        # m_j/(m_i+m_j) * vdotp/d2 * dp per pair and doubles once at the
+        # end, a different f32 rounding order from the oracle's; 1e-5 stays
+        # far tighter than any physical meaning of a velocity impulse while
+        # still catching structural bugs
         assert np.abs(da - db).max() / scale < 1e-5
 
 
@@ -73,6 +73,55 @@ def test_kernel_tile_invariance(tiles):
     b = pair_accumulators(pos, vel, mass, radius, mode="reference",
                           growth_rate=0.1)
     assert_equivalent(a, b, "reference")
+
+
+@pytest.mark.parametrize("mode", ["reference", "momentum", "elastic"])
+def test_kernel_many_j_tiles(mode):
+    """A long sweep (69 j-tiles of 16, the last one padded): per-lane sums
+    and the momentum lanes' lowest-id tie-break across tiles."""
+    n, tj = 1100, 16
+    pos, vel, mass, radius = random_state(n, seed=21, field=3000.0)
+    a = pallas_pair_accumulators(pos, vel, mass, radius, mode=mode,
+                                 growth_rate=0.1, tile_i=32, tile_j=tj,
+                                 interpret=True)
+    b = pair_accumulators(pos, vel, mass, radius, mode=mode, growth_rate=0.1)
+    assert_equivalent(a, b, mode)
+
+
+@pytest.fixture
+def short_lanes(monkeypatch):
+    """Lanes of at most 4 terms, so small N takes several j spans. The span
+    count is fixed when the jitted kernel wrapper traces, hence the cache
+    clears around the patch."""
+    import jax
+
+    from nbodyax.physics import kernels
+    jax.clear_caches()
+    monkeypatch.setattr(kernels, "MAX_LANE_TERMS", 4)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_j_spans_match_oracle(mode, short_lanes):
+    """N=300 in 16-wide tiles, at most 4 tiles per span: 5 spans of 64
+    columns, the last one padded. Spans are summed (additive channels) or
+    max-combined (momentum); masses from three values make equal-mass
+    candidates across spans, so the lowest-id tie-break must hold across
+    them too."""
+    n = 300
+    pos, vel, _, radius = random_state(n, seed=17, field=300.0)
+    mass = np.random.RandomState(17).choice(
+        np.float32([10.0, 20.0, 30.0]), n)
+    mass[7] = 0.0
+    a = pallas_pair_accumulators(pos, vel, mass, radius, mode=mode,
+                                 growth_rate=0.1, tile_i=32, tile_j=16,
+                                 interpret=True)
+    b = pair_accumulators(pos, vel, mass, radius, mode=mode, growth_rate=0.1)
+    if mode == "momentum":
+        assert np.sum(np.asarray(b.parent) != np.arange(n)) > 50
+    assert_equivalent(a, b, mode)
 
 
 def test_kernel_offset_partition_equals_full():

@@ -37,10 +37,10 @@ def test_mesh_has_8_fake_devices():
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
 @pytest.mark.parametrize("mode", ["reference", "momentum", "elastic"])
-def test_ring_accumulators_match_dense(mode, backend):
+def test_ring_accumulators_match_dense(mode, backend, kernel_interpreter):
     """backend="pallas" runs the Pallas kernel in interpret mode inside the
-    ring — the exact code path a real v5e-8 executes (ring hop -> pallas
-    tile pass with nonzero j offsets), minus only the hardware lowering."""
+    ring — the code path four GPUs execute (ring hop -> kernel tile pass
+    with nonzero j offsets), minus only the GPU compilation."""
     n = 256  # 32 bodies per shard
     st = random_state(n, seed=1)
     p = PhysicsParams(collision_mode=mode)
@@ -74,7 +74,8 @@ def test_ring_accumulators_match_dense(mode, backend):
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
 @pytest.mark.parametrize("mode", ["reference", "momentum", "elastic"])
-def test_sharded_step_matches_single_device(mode, backend):
+def test_sharded_step_matches_single_device(mode, backend,
+                                            kernel_interpreter):
     n = 256
     st = random_state(n, seed=2)
     p = PhysicsParams(dt=0.1, field_width=1000, field_height=1000,

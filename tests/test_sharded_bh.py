@@ -112,7 +112,8 @@ def test_sharded_bh_leapfrog_matches_single_device():
 def test_sharded_bh_scale_representative():
     """Denser, more representative scale on the virtual mesh (N=8192,
     levels=5): the compute-parallel design must stay exact-equal to the
-    single-device bh step (memory/ICI accounting in sharding/bh.py)."""
+    single-device bh step (memory/interconnect accounting in
+    sharding/bh.py)."""
     n = 8192
     st = random_state(n, seed=11, field=20000.0)
     p = PhysicsParams(dt=0.1, field_width=20000, field_height=20000, eps=20.0)
@@ -129,36 +130,6 @@ def test_sharded_bh_scale_representative():
                                rtol=1e-5, atol=1e-3)
     np.testing.assert_array_equal(np.asarray(a.mass) > 0,
                                   np.asarray(b.mass) > 0)
-
-
-def test_cellrange_pallas_matches_jnp():
-    """The sharded (cell_range) hook of the fused Pallas near kernel
-    (traced cell_base + static slice length; global slot grid) must match
-    the jnp engine shard-for-shard — the multi-chip fast path's
-    correctness anchor, run in interpret mode on CPU."""
-    from nbodyax.physics.barneshut import bh_cellrange_accumulators
-
-    n, nsh = 1024, 4
-    rng = np.random.RandomState(7)
-    pos = rng.uniform(-2000, 2000, (n, 2)).astype(np.float32)
-    pos[:200] = rng.uniform(-40, 40, (200, 2))    # one crowded cell
-    vel = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
-    mass = rng.uniform(1, 100, n).astype(np.float32)
-    mass[3] = 0.0
-    radius = rng.uniform(1, 15, n).astype(np.float32)
-    kw = dict(eps=10.0, growth_rate=0.1, mode="reference", levels=4,
-              neighbor_k=64, near="slots")
-    for s in range(nsh):
-        a = bh_cellrange_accumulators(pos, vel, mass, radius, s, nsh,
-                                      near_pallas="off", **kw)
-        b = bh_cellrange_accumulators(pos, vel, mass, radius, s, nsh,
-                                      near_pallas="on", **kw)
-        fa, fb = np.asarray(a.force), np.asarray(b.force)
-        err = np.abs(fa - fb).max() / max(1e-30, np.abs(fa).max())
-        assert err < 3e-6, (s, err)
-        np.testing.assert_array_equal(np.asarray(a.died), np.asarray(b.died))
-        np.testing.assert_allclose(np.asarray(a.gained_mass),
-                                   np.asarray(b.gained_mass), rtol=1e-5)
 
 
 @pytest.mark.parametrize("near", ["rows", "slots"])

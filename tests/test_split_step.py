@@ -6,7 +6,7 @@ from nbodyax.physics.step import PhysicsParams, make_split_step, make_step
 from nbodyax.state import make_state
 
 
-def test_split_step_matches_monolithic():
+def test_split_step_matches_monolithic(kernel_interpreter):
     rng = np.random.RandomState(2)
     n = 300
     st = make_state(rng.uniform(-1000, 1000, (n, 2)).astype(np.float32),
@@ -27,7 +27,7 @@ def test_split_step_matches_monolithic():
     assert int(np.asarray(a.step)) == 3
 
 
-def test_split_step_leapfrog_matches_monolithic():
+def test_split_step_leapfrog_matches_monolithic(kernel_interpreter):
     rng = np.random.RandomState(3)
     n = 300
     st = make_state(rng.uniform(-1000, 1000, (n, 2)).astype(np.float32),
